@@ -37,6 +37,8 @@ def main():
 
     import jax
     jax.config.update("jax_platforms", "cpu")
+    from sparsh_amg_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from sparsh_amg_tpu.models.poisson import poisson3d, poisson3d_rows
     from sparsh_amg_tpu.params import AMGParams

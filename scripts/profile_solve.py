@@ -3,7 +3,7 @@
 weak #2 follow-up): times every dispatch and transfer of the refinement
 driver separately — b upload, kr_init, main/tail chunks, rr readbacks,
 refine residual/update, true-resnorm, x download — to show where the
-measured solve_s goes beyond the chip-time bound.
+measured solve_s goes beyond the device-time bound.
 """
 import argparse
 import json
@@ -12,7 +12,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("SPARSH_NO_PALLAS_DIA", "1")
 
 import numpy as np
 
@@ -25,8 +24,8 @@ def main():
 
     import jax
     import jax.numpy as jnp
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_sparsh_amg")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from sparsh_amg_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     from sparsh_amg_tpu.models.poisson import poisson3d
     from sparsh_amg_tpu.params import AMGParams, KrylovParams
     from sparsh_amg_tpu.setup.hierarchy import amg_setup

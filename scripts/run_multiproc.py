@@ -36,9 +36,8 @@ jax.config.update("jax_num_cpu_devices", 4)
 
 import numpy as np
 
-from sparsh_amg_tpu.params import KrylovParams
+from sparsh_amg_tpu.params import KrylovParams, flagship_params
 from sparsh_amg_tpu.parallel.multihost import (launch_processes,
-                                               _flagship_params,
                                                _elasticity_sa_params)
 from sparsh_amg_tpu.parallel.solver import DistAMGSolver, default_mesh
 
@@ -48,7 +47,7 @@ def run_problem(problem: str, m: int, procs: int) -> dict:
         from sparsh_amg_tpu.models.poisson import poisson3d
         A = poisson3d(m)
         ns = None
-        params = _flagship_params()
+        params = flagship_params()
         maxiter = 60
     else:
         from sparsh_amg_tpu.models.elasticity import (
@@ -131,6 +130,8 @@ def main():
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         "MULTIPROC_r5.json"))
     args = ap.parse_args()
+    from sparsh_amg_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     out = {"procs": args.procs, "problems": {}}
     for problem in args.problems.split(","):

@@ -1,14 +1,14 @@
-"""sparsh_amg_tpu — a TPU-native algebraic multigrid solver library.
+"""sparsh_amg_tpu — an algebraic multigrid solver library in JAX.
 
 A from-scratch rebuild of the capabilities of SParSH-AMG (cmgcds/SParSH-AMG,
 a hybrid CPU-GPU MPI+OpenMP+CUDA AMG library; see SURVEY.md): classical and
 aggregation AMG setup, weighted-Jacobi / l1-Jacobi / Chebyshev smoothing,
-V/W/F cycles, and AMG-preconditioned CG / BiCGStab — designed TPU-first:
+V/W/F cycles, and AMG-preconditioned CG / BiCGStab, solved on a GPU:
 
 * setup runs on the host (native C++ graph kernels + scipy SpGEMM),
 * the solve phase is one jitted XLA computation over padded DIA/ELL layouts,
-* 1e-8 residuals on fp32 hardware via df64 iterative refinement,
-* distribution via `jax.sharding` row partitioning with ICI halo collectives
+* 1e-8 residuals from an fp32 solve via df64 iterative refinement,
+* distribution via `jax.sharding` row partitioning with halo collectives
   (see `sparsh_amg_tpu.parallel`).
 """
 from ._native import tune_malloc as _tune_malloc

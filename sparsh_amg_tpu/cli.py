@@ -83,7 +83,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--reorder", default="auto",
                    choices=["auto", "rcm", "none"])
     p.add_argument("--dist", type=int, default=0, metavar="N",
-                   help="row-shard over N devices (0 = serial single chip)")
+                   help="row-shard over N devices (0 = serial single device)")
     p.add_argument("--save-hierarchy", default=None, metavar="PATH.npz",
                    help="serialize the host hierarchy after setup")
     p.add_argument("--load-hierarchy", default=None, metavar="PATH.npz",
@@ -101,6 +101,8 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def run(argv=None) -> dict:
     args = build_argparser().parse_args(argv)
+    from .utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     if args.verbose:
         import logging
         from .utils.logging import get_logger

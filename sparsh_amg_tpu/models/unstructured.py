@@ -7,9 +7,8 @@ generators produce the same MATRIX CLASS locally).
 `delaunay_laplacian` builds the weighted graph Laplacian of a Delaunay
 triangulation over jittered points: node degrees vary (5-9 typical, tail
 to ~12+), the sparsity pattern has no stencil bands, and after RCM the
-column profile is banded-ish but ragged — exactly the locality regime
-the GELL window packer has never been measured on (its stream-slope
-layout argument is derived from grid locality, ops/gell.py).
+column profile is banded-ish but ragged — the irregular regime the ELL
+gather layout serves.
 
 SPD: L = D - W with W > 0 (M-matrix), grounded at the hull points by a
 Dirichlet diagonal shift — the standard "SuiteSparse surrogate" used in

@@ -6,6 +6,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 
 from . import df64
+from .formats import HIGHEST
 
 
 def dot(x, y, compensated: bool = True):
@@ -14,7 +15,8 @@ def dot(x, y, compensated: bool = True):
     if compensated:
         hi, lo = df64.dot(x, y)
         return hi + lo
-    return jnp.dot(x, y, preferred_element_type=jnp.float32)
+    return jnp.dot(x, y, precision=HIGHEST,
+                   preferred_element_type=jnp.float32)
 
 
 def norm_sq(x, compensated: bool = True):

@@ -1,15 +1,14 @@
 """Double-float (df64) arithmetic: ~47-bit-mantissa precision from fp32 pairs.
 
-TPUs have no fast native float64 (SURVEY.md §7 hard-part #1).  To reach the
+The device solve runs in fp32 (SURVEY.md §7 hard-part #1).  To reach the
 reference's 1e-8 relative-residual target — below fp32 roundoff — the outer
 iterative-refinement loop computes residuals and accumulates the solution in
 double-float arithmetic: each value is an unevaluated sum hi + lo of two
 fp32s.  Classic error-free transforms (Knuth two_sum, Dekker split/two_prod);
-all elementwise VPU ops, fully vectorized, no emulated-x64 needed.
+all elementwise ops, fully vectorized, no x64 mode needed.
 
-These identities rely on IEEE round-to-nearest single ops; TPU VPU fp32
-elementwise arithmetic is IEEE-compliant, and XLA does not reassociate
-floating-point by default.
+These identities rely on IEEE round-to-nearest fp32 ops, and XLA does not
+reassociate floating-point by default.
 """
 from __future__ import annotations
 

@@ -1,17 +1,19 @@
 """Device sparse-matrix layouts and SpMV (SURVEY.md §2 C1, C4/C5).
 
 The reference stores CSR on host and device and runs OpenMP/cuSPARSE SpMV.
-CSR's per-row ragged loop is hostile to the TPU's (8,128) vector tiles, so
-matrices are frozen at setup time into one of two padded, static layouts:
+Here matrices are frozen at setup time into padded, static layouts whose
+SpMV is plain XLA (no hand-written kernels):
 
 * DIA (diagonal): for stencil-structured matrices every nonzero lies on one
   of a few constant offsets ``col - row``; y = sum_d band_d * shift(x, d).
-  Pure shifted elementwise FMAs — zero gathers, HBM-bandwidth bound.
+  Pure shifted elementwise FMAs that XLA fuses into one pass — zero
+  gathers, memory-bandwidth bound.
 * ELL-T (transposed ELLPACK): ``cols``/``vals`` of shape (K, n_pad); row i
   has its nonzeros spread over the K slots (padded with val=0, col=0).
-  y = sum_k vals[k] * x[cols[k]] — K contiguous 1-D gathers.
+  y = sum_k vals[k] * x[cols[k]] — one (K, n_pad) gather.
+* Dense: small coarse levels as one matrix-vector product.
 
-Both are registered pytrees so entire hierarchies jit cleanly.
+All are registered pytrees so entire hierarchies jit cleanly.
 """
 from __future__ import annotations
 
@@ -28,28 +30,10 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-# Pallas DIA kernel dispatch: TPU backend, level big enough to amortize the
-# kernel launch.  SPARSH_NO_PALLAS=1 forces the XLA fallback everywhere.
-# (The v2 DMA-free kernel is bitwise-exact vs the XLA path on real TPU;
-# the earlier manual-async-copy design faulted the worker and was removed.)
-_PALLAS_DIA_MIN = 1 << 14
-
-
-def _use_pallas_dia(n_pad: int, offsets: tuple = ()) -> bool:
-    import os
-    if os.environ.get("SPARSH_NO_PALLAS") or \
-            os.environ.get("SPARSH_NO_PALLAS_DIA"):
-        return False
-    try:
-        if not (jax.default_backend() == "tpu"
-                and n_pad >= _PALLAS_DIA_MIN):
-            return False
-    except RuntimeError:
-        return False
-    if offsets:
-        from .pallas_spmv import pallas_dia_ok
-        return pallas_dia_ok(n_pad, offsets)
-    return True
+# fp32 matrix-vector products must not run in TF32 on GPUs (about 10
+# mantissa bits): every dense product in the solve path asks for full
+# fp32 precision explicitly.
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @partial(jax.tree_util.register_dataclass,
@@ -67,14 +51,7 @@ class DiaMatrix:
         return self.bands.shape[1]
 
     def spmv(self, x: jax.Array) -> jax.Array:
-        """y[i] = sum_d bands[d,i] * x[i + off_d];  x padded to n_pad.
-
-        On TPU, large levels dispatch to the Pallas kernel (x streamed to
-        VMEM once, diagonal shifts realized on-chip — see pallas_spmv.py);
-        elsewhere the XLA shifted-FMA fallback."""
-        if _use_pallas_dia(self.n_pad, self.offsets):
-            from .pallas_spmv import dia_spmv_pallas
-            return dia_spmv_pallas(self.bands, x, self.offsets, self.n_pad)
+        """y[i] = sum_d bands[d,i] * x[i + off_d];  x padded to n_pad."""
         n_pad = self.n_pad
         maxoff = max((abs(o) for o in self.offsets), default=0)
         xp = jnp.pad(x, (maxoff, maxoff))
@@ -147,18 +124,17 @@ def _ell_spmv(cols, vals, x, n_pad, unroll_max: int = 2):
          data_fields=["mat"], meta_fields=["n_rows", "n_cols", "out_pad"])
 @dataclasses.dataclass(frozen=True)
 class DenseMatrix:
-    """Densified small-level operator: spmv is an MXU matvec.  Coarse AMG
-    levels lose all sparsity structure (SURVEY.md §6: RS coarse operators
-    densify); below a size threshold a dense matmul is both faster and
-    compiles O(1) regardless of nnz/row.
+    """Densified small-level operator: spmv is one dense matvec.  Coarse
+    AMG levels lose all sparsity structure (SURVEY.md §6: RS coarse
+    operators densify); below a size threshold a dense product is both
+    faster and compiles O(1) regardless of nnz/row.
 
-    `mat` is padded TIGHT (multiples of 256, MXU-aligned) rather than to
-    the level vector length: level pads are multiples of 2048, and a
-    2048-padded square at a few-k rows is mostly zeros — e.g. a 4.2k-row
-    level padded to 6144^2 bf16 is 75 MB vs 37 MB tight, pure upload waste
-    on the 50 MB/s relay link.  spmv slices its input to mat's columns and
-    zero-pads its output back to `out_pad` (the level vector length); both
-    fuse with the surrounding elementwise ops."""
+    `mat` is padded TIGHT (multiples of 256) rather than to the level
+    vector length: level pads are multiples of 2048, and a 2048-padded
+    square at a few-k rows is mostly zeros — e.g. a 4.2k-row level padded
+    to 6144^2 bf16 is 75 MB vs 37 MB tight.  spmv slices its input to
+    mat's columns and zero-pads its output back to `out_pad` (the level
+    vector length); both fuse with the surrounding elementwise ops."""
     mat: jax.Array            # (r_pad, c_pad), tight 256-multiples
     n_rows: int
     n_cols: int
@@ -170,7 +146,8 @@ class DenseMatrix:
 
     def spmv(self, x: jax.Array) -> jax.Array:
         r, c = self.mat.shape
-        y = jnp.dot(self.mat, x[:c], preferred_element_type=x.dtype)
+        y = jnp.dot(self.mat, x[:c], precision=HIGHEST,
+                    preferred_element_type=x.dtype)
         if self.out_pad > r:
             y = jnp.pad(y, (0, self.out_pad - r))
         return y
@@ -182,10 +159,7 @@ def spmv(A, x: jax.Array) -> jax.Array:
 
 
 def residual(A, x: jax.Array, b: jax.Array) -> jax.Array:
-    """r = b - A x, fused into one op on the Pallas DIA path."""
-    if isinstance(A, DiaMatrix) and _use_pallas_dia(A.n_pad, A.offsets):
-        from .pallas_spmv import dia_residual
-        return dia_residual(A.bands, x, b, A.offsets, A.n_pad)
+    """r = b - A x."""
     return b - A.spmv(x)
 
 
@@ -290,13 +264,12 @@ def csr_to_dense(A: sp.csr_matrix, dtype=jnp.float32,
 
 def csr_to_device(A: sp.csr_matrix, dtype=jnp.float32, prefer_dia: bool = True,
                   dia_max_bands: int = 32, pad_multiple: int = 128,
-                  dense_size: int = 0, prefer_gell: bool = False):
-    """Pick the best device layout for a host CSR matrix.
+                  dense_size: int = 0):
+    """Pick the device layout for a host CSR matrix.
 
     Dense matvec below `dense_size` rows; DIA when the matrix is square,
     stencil-structured (few distinct diagonals) and dense-enough within
-    them; gathered-ELL (Pallas window-gather kernel, ops/gell.py) when
-    requested and the matrix packs; classical ELL otherwise.
+    them; ELL otherwise.
     """
     n, m = A.shape
     if dense_size and n <= dense_size and m <= dense_size:
@@ -322,13 +295,6 @@ def csr_to_device(A: sp.csr_matrix, dtype=jnp.float32, prefer_dia: bool = True,
             if len(uoffs) <= dia_max_bands and len(uoffs) * n <= 4 * A.nnz:
                 return csr_to_dia(A, dtype, pad_multiple,
                                   _pre=(rows, offs, uoffs))
-    if prefer_gell:
-        from .gell import csr_to_gell_auto, gell_eligible
-        if gell_eligible():
-            G = csr_to_gell_auto(A, dtype=dtype,
-                                 n_pad=_round_up(max(n, 1), pad_multiple))
-            if G is not None:
-                return G
     return csr_to_ell(A, dtype, pad_multiple)
 
 

@@ -6,9 +6,9 @@ stacked (nd, ...) device layouts — every process must hold the global
 matrix.  This module is its process-local twin: each rank freezes only
 ITS OWN row blocks (the dpp = nd / n_procs device shards it feeds) from
 a per-rank :class:`~..setup.blocked.BlockedHierarchy`, agreeing on the
-shared static metadata (DIA offsets, ELL K/halo widths, GELL packing
-plans, Chebyshev lambda_max) through the same :class:`~..setup.comm.
-BlockComm` the blocked setup used.  The per-shard blocks are
+shared static metadata (DIA offsets, ELL K/halo widths, Chebyshev
+lambda_max) through the same :class:`~..setup.comm.BlockComm` the
+blocked setup used.  The per-shard blocks are
 BIT-IDENTICAL to what the global `csr_to_dist` builds — asserted in
 tests/test_blocked_dist.py — so the solve is numerically identical to
 the single-process path while no rank ever materializes a global
@@ -34,8 +34,7 @@ from ..setup.blocked import BlockedHierarchy
 from ..setup.comm import BlockComm
 from ..solve.device import abs_row_sum
 from .partition import Partition, _round_up
-from .dist import (DistDia, DistEll, DistGell, DistDense, GatherOut,
-                   ReplSrc)
+from .dist import DistDia, DistEll, DistDense, GatherOut, ReplSrc
 from .hierarchy import DistLevel, DistDf64, DistHierarchy, _replicated_level
 
 _I64 = np.int64
@@ -152,7 +151,7 @@ def csr_rows_to_dist(A_own: sp.csr_matrix, r0: int, part_dst: Partition,
                      dpp: int, dtype=jnp.float32, axis: str = "rows",
                      prefer_dia: bool = True, dia_max_bands: int = 32,
                      max_halo_frac: float = 1.0, dense_size: int = 0,
-                     allow_gell: bool = True, as_numpy: bool = False):
+                     as_numpy: bool = False):
     """Process-local `parallel.dist.csr_to_dist`: freeze the owned row
     block (global columns) into the SAME distributed layout the global
     builder picks, with the format decision and all static metadata
@@ -232,24 +231,6 @@ def csr_rows_to_dist(A_own: sp.csr_matrix, r0: int, part_dst: Partition,
         fill = 0
         h = 0
 
-    from ..ops.gell import gell_eligible
-    if allow_gell and gell_eligible() and nnz_g >= (1 << 13):
-        G = _gell_rows_stacked(A_own, ext, s_idx, r_loc, d0, dpp, nl_d,
-                               nl_s, nd, K, nnz_g, mode, h, comm, dtype)
-        if G is not None:
-            Gs = G
-            G0 = Gs[0]
-            stk = ((lambda xs: np.stack([np.asarray(x) for x in xs]))
-                   if as_numpy else (lambda xs: jnp.stack(list(xs))))
-            return DistGell(
-                wwords=stk([G.wwords for G in Gs]),
-                counts=stk([G.counts for G in Gs]),
-                packed=stk([G.packed for G in Gs]),
-                vals=stk([G.vals for G in Gs]),
-                k=G0.k, s=G0.s, tr=G0.tr, wmode=G0.wmode,
-                src_pad=G0.src_pad, h=int(h), nd=nd, axis=axis,
-                mode=mode, n_rows=n, n_cols=m, n_loc=nl_d)
-
     slot = np.arange(A_own.nnz, dtype=_I64) - np.repeat(
         A_own.indptr[:-1].astype(_I64), nnz_per_row)
     cols_arr = np.full((dpp, K, nl_d), fill, dtype=np.int32)
@@ -259,90 +240,6 @@ def csr_rows_to_dist(A_own: sp.csr_matrix, r0: int, part_dst: Partition,
     return DistEll(cols=jnp_(cols_arr), vals=jnp_(vals_arr, dtype=dtype),
                    h=int(h), nd=nd, axis=axis, mode=mode, n_rows=n,
                    n_cols=m)
-
-
-def _gell_rows_stacked(A_own, ext, s_idx, r_loc, d0, dpp, nl_d, nl_s, nd,
-                       K, nnz_g, mode, h, comm, dtype):
-    """Comm-agreed twin of `ops.gell.csr_to_gell_stacked`: every rank
-    packs its OWN shard blocks, the (TR, S) plan is chosen from
-    allgathered per-rank summaries by the same rules the global packer
-    applies to the full block list, and the final tables are re-packed
-    with the agreed plan — identical static shapes on every rank (the
-    shard_map stacking requirement), identical bits to the global pack.
-    Returns the rank's list of GellMatrix, or None (caller falls back to
-    DistEll)."""
-    from ..ops.gell import (csr_to_gell, _smem_per_tile, SMEM_BUDGET,
-                            LANE)
-    nnz_avg = nnz_g / max(nd * max(nl_d, 1), 1)
-    if K > max(8, int(4 * max(nnz_avg, 1))) or K > 16 * LANE:
-        return None
-    src_len = (nl_s + 2 * h) if mode == "halo" else nd * nl_s
-    # per-shard local blocks (owned rows only; s_idx non-decreasing)
-    blocks = []
-    order_ok = np.all(np.diff(s_idx) >= 0) if len(s_idx) else True
-    assert order_ok
-    lo_hi = np.searchsorted(s_idx, np.arange(d0, d0 + dpp + 1))
-    for s in range(dpp):
-        lo, hi_ = lo_hi[s], lo_hi[s + 1]
-        cnt = np.bincount(r_loc[lo:hi_], minlength=nl_d)
-        bp = np.zeros(nl_d + 1, dtype=_I64)
-        np.cumsum(cnt, out=bp[1:])
-        B = sp.csr_matrix((A_own.data[lo:hi_],
-                           ext[lo:hi_].astype(np.int32), bp),
-                          shape=(nl_d, src_len))
-        B.has_sorted_indices = True
-        B.has_canonical_format = True
-        blocks.append(B)
-
-    chosen = fallback = None
-    packs = {}
-    # candidates stay host numpy (ops/gell._finish_gell as_numpy): the
-    # final stk is the only host->device conversion
-    for TR in (16, 64, 128, 32):
-        Gs = [csr_to_gell(B, dtype=dtype, n_pad=nl_d, tr_force=TR,
-                          k_force=K, as_numpy=True) for B in blocks]
-        any_none = any(G is None for G in Gs)
-        s_loc = max((G.s for G in Gs if G is not None), default=0)
-        # rank-0 leads the wmode/n_tiles read (the global packer reads
-        # blocks[0]); they are deterministic given (src_len, TR) anyway
-        head = (Gs[0].wmode, Gs[0].n_tiles) if Gs[0] is not None else None
-        summaries = comm.allgather((any_none, s_loc, head))
-        if any(s[0] for s in summaries):
-            if TR == 16:
-                return None       # s_max policy gate
-            continue
-        S = max(s[1] for s in summaries)
-        wmode0, n_tiles0 = summaries[0][2]
-        per_word = 2 if wmode0 == 16 else 1
-        W = -(-S // per_word)
-        smem = n_tiles0 * _smem_per_tile(W)
-        packs[TR] = Gs
-        if TR == 16:
-            fallback = (TR, S)
-            continue
-        if smem <= SMEM_BUDGET:
-            chosen = (TR, S)
-            break
-        if chosen is None:
-            chosen = (TR, S)
-    if chosen is None:
-        chosen = fallback
-    if chosen is None:
-        return None
-    TR, S = chosen
-    out = []
-    for B, G in zip(blocks, packs[TR]):
-        if G.s != S:
-            G = csr_to_gell(B, dtype=dtype, n_pad=nl_d, tr_force=TR,
-                            s_force=S, k_force=K, as_numpy=True)
-            if G is None:
-                return None
-        out.append(G)
-    shapes = {(G.k, G.s, G.tr, G.wmode, G.n_tiles, G.wwords.shape,
-               G.packed.shape) for G in out}
-    all_shapes = set().union(*comm.allgather(shapes))
-    assert len(all_shapes) == 1, f"GELL plan divergence: {all_shapes}"
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -461,7 +358,7 @@ def fine_df64_blocked(A_own: sp.csr_matrix, r0: int, part: Partition,
     conv = lambda M: csr_rows_to_dist(
         M, r0, part, part, comm, d0, dpp, dtype=jnp.float32, axis=axis,
         prefer_dia=params.prefer_dia, dia_max_bands=params.dia_max_bands,
-        allow_gell=False, as_numpy=as_numpy)
+        as_numpy=as_numpy)
     A_hi = conv(A_hi_host)
     lo_any = bool(comm.allreduce_sum(int(bool(lo_host.data.any()))))
     if not lo_any:

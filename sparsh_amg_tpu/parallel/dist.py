@@ -2,12 +2,12 @@
 
 The reference's distributed SpMV is the hypre-ParCSR pattern: post
 Irecv/Isend for ghost entries, multiply the local diagonal block while the
-wire is busy, then the off-diagonal block (SURVEY.md §3.4).  The TPU-native
+wire is busy, then the off-diagonal block (SURVEY.md §3.4).  The JAX
 equivalent implemented here:
 
 * ``halo_exchange`` — neighbor `ppermute` of fixed-width boundary slices
   over the mesh axis (contiguous row blocks ⇒ ghost traffic is
-  nearest-neighbor on ICI).  XLA schedules the collective asynchronously,
+  nearest-neighbor; XLA lowers it to NCCL on GPUs).  XLA schedules the collective asynchronously,
   so the local-block FMA work overlaps with it exactly as Isend/Irecv
   overlap in the reference.
 * ``DistDia`` / ``DistEll`` — per-shard local operator blocks whose columns
@@ -35,6 +35,7 @@ import numpy as np
 import scipy.sparse as sp
 
 from ..ops import df64
+from ..ops.formats import HIGHEST
 from .partition import Partition, _round_up
 
 
@@ -70,8 +71,8 @@ def pdot(x: jax.Array, y: jax.Array, axis: str, compensated: bool = True):
         hi = jax.lax.psum(hi, axis)
         lo = jax.lax.psum(lo, axis)
         return hi + lo
-    return jax.lax.psum(jnp.dot(x, y, preferred_element_type=jnp.float32),
-                        axis)
+    return jax.lax.psum(jnp.dot(x, y, precision=HIGHEST,
+                                preferred_element_type=jnp.float32), axis)
 
 
 # ---------------------------------------------------------------------------
@@ -188,65 +189,13 @@ class DistEll:
 
 
 @partial(jax.tree_util.register_dataclass,
-         data_fields=["wwords", "counts", "packed", "vals"],
-         meta_fields=["k", "s", "tr", "wmode", "src_pad", "h", "nd",
-                      "axis", "mode", "n_rows", "n_cols", "n_loc"])
-@dataclasses.dataclass(frozen=True)
-class DistGell:
-    """Row-block gathered-ELL operator: each shard's local block packed in
-    the GELL stream layout (ops/gell.py) with shape-IDENTICAL tables
-    across shards (csr_to_gell_stacked), columns indexing the extended
-    [halo|local|halo] vector (mode "halo") or the all-gathered blocked
-    source (mode "gather").  The distributed twin of GellMatrix: the same
-    Pallas window-gather kernel runs inside shard_map, replacing the
-    ~100x-slower XLA gather of DistEll on every irregular level."""
-    wwords: jax.Array         # (nd, n_tiles, W) stacked / local without nd
-    counts: jax.Array         # (nd, n_tiles)
-    packed: jax.Array         # (nd, n_tiles, TR, LANE)
-    vals: jax.Array           # (nd, n_tiles, TR, LANE) band dtype
-    k: int
-    s: int
-    tr: int
-    wmode: int
-    src_pad: int              # padded extended/gathered source length
-    h: int                    # halo width (0 in gather mode)
-    nd: int
-    axis: str
-    mode: str                 # "halo" | "gather"
-    n_rows: int               # logical global rows
-    n_cols: int
-    n_loc: int                # local output length (= partition n_loc)
-
-    def local(self) -> "DistGell":
-        return dataclasses.replace(
-            self, wwords=self.wwords[0], counts=self.counts[0],
-            packed=self.packed[0], vals=self.vals[0])
-
-    def as_gell(self):
-        """Local-table GellMatrix view (call on local() arrays)."""
-        from ..ops.gell import GellMatrix
-        return GellMatrix(
-            wwords=self.wwords, counts=self.counts, packed=self.packed,
-            vals=self.vals, n_rows=self.n_loc, n_cols=self.src_pad,
-            k=self.k, s=self.s, tr=self.tr, wmode=self.wmode,
-            src_pad=self.src_pad, n_pad=self.n_loc)
-
-    def spmv(self, x_loc: jax.Array) -> jax.Array:
-        if self.mode == "halo":
-            src = halo_exchange(x_loc, self.h, self.nd, self.axis)
-        else:
-            src = jax.lax.all_gather(x_loc, self.axis, tiled=True)
-        return self.as_gell().spmv(src)
-
-
-@partial(jax.tree_util.register_dataclass,
          data_fields=["mat"],
          meta_fields=["nd", "axis", "n_rows", "n_cols"])
 @dataclasses.dataclass(frozen=True)
 class DistDense:
     """Densified small-level operator, row-sliced per shard: each shard
     holds its (n_loc, m_pad_global) slice and multiplies the all-gathered
-    source vector on the MXU (the distributed twin of
+    source vector (the distributed twin of
     ops.formats.DenseMatrix; agglomeration per SURVEY.md C24)."""
     mat: jax.Array            # (nd, n_loc, m_pad) stacked / (n_loc, m_pad) local
     nd: int
@@ -263,7 +212,8 @@ class DistDense:
 
     def spmv(self, x_loc: jax.Array) -> jax.Array:
         x_full = jax.lax.all_gather(x_loc, self.axis, tiled=True)
-        return jnp.dot(self.mat, x_full, preferred_element_type=x_loc.dtype)
+        return jnp.dot(self.mat, x_full, precision=HIGHEST,
+                       preferred_element_type=x_loc.dtype)
 
 
 def dist_spmv(A, x_loc):
@@ -311,10 +261,8 @@ class ReplSrc:
 
     def spmv(self, x_full: jax.Array) -> jax.Array:
         if isinstance(self.op, DistDense):
-            return jnp.dot(self.op.mat, x_full,
+            return jnp.dot(self.op.mat, x_full, precision=HIGHEST,
                            preferred_element_type=x_full.dtype)
-        if isinstance(self.op, DistGell):
-            return self.op.as_gell().spmv(x_full)   # input already full
         from ..ops.formats import _ell_spmv
         return _ell_spmv(self.op.cols, self.op.vals, x_full, self.op.n_loc)
 
@@ -332,8 +280,7 @@ def _csr_fields(A: sp.csr_matrix):
 def csr_to_dist(A: sp.csr_matrix, part_dst: Partition, part_src: Partition,
                 dtype=jnp.float32, axis: str = "rows",
                 prefer_dia: bool = True, dia_max_bands: int = 32,
-                max_halo_frac: float = 1.0, dense_size: int = 0,
-                allow_gell: bool = True):
+                max_halo_frac: float = 1.0, dense_size: int = 0):
     """Freeze a host CSR operator into a distributed device layout.
 
     ``part_dst`` partitions the rows (output vector), ``part_src`` the
@@ -402,40 +349,6 @@ def csr_to_dist(A: sp.csr_matrix, part_dst: Partition, part_src: Partition,
         ext = cols  # blocked global == plain global (block == n_loc)
         fill = 0
         h = 0
-
-    from ..ops.gell import gell_eligible, csr_to_gell_stacked
-    if allow_gell and gell_eligible() and A.nnz >= (1 << 13):
-        # Pack each shard's local block in the GELL stream layout against
-        # the extended/gathered source — the Pallas window-gather kernel
-        # then serves the distributed irregular levels too.  Rows are
-        # CSR-ordered so s_idx is non-decreasing: per-shard slices are
-        # contiguous ranges of the nnz arrays.
-        src_len = (nl_s + 2 * h) if mode == "halo" else nd * nl_s
-        lo_hi = np.searchsorted(s_idx, np.arange(nd + 1))
-        blocks = []
-        for s in range(nd):
-            lo, hi_ = lo_hi[s], lo_hi[s + 1]
-            cnt = np.bincount(r_loc[lo:hi_], minlength=nl_d)
-            bp = np.zeros(nl_d + 1, dtype=np.int64)
-            np.cumsum(cnt, out=bp[1:])
-            B = sp.csr_matrix((data[lo:hi_],
-                               ext[lo:hi_].astype(np.int32), bp),
-                              shape=(nl_d, src_len))
-            B.has_sorted_indices = True   # ext is monotone within a row
-            B.has_canonical_format = True
-            blocks.append(B)
-        Gs = csr_to_gell_stacked(blocks, dtype=dtype, n_pad=nl_d)
-        if Gs is not None:
-            G0 = Gs[0]
-            stk = lambda f: jnp.stack([f(G) for G in Gs])
-            return DistGell(
-                wwords=stk(lambda G: G.wwords),
-                counts=stk(lambda G: G.counts),
-                packed=stk(lambda G: G.packed),
-                vals=stk(lambda G: G.vals),
-                k=G0.k, s=G0.s, tr=G0.tr, wmode=G0.wmode,
-                src_pad=G0.src_pad, h=int(h), nd=nd, axis=axis,
-                mode=mode, n_rows=n, n_cols=m, n_loc=nl_d)
 
     slot = np.arange(A.nnz, dtype=np.int64) - np.repeat(
         A.indptr[:-1].astype(np.int64), nnz_per_row)

@@ -6,7 +6,7 @@ grids.  Here every level is row-partitioned over the same 1-D mesh
 (Partition with identical padded blocks), smoother vectors are stacked with
 a leading shard axis, and the coarsest level is *agglomerated*: its dense
 inverse is pre-split row-wise so each shard computes its slice of
-``A_c^-1 (all_gather r_c)`` — the TPU-native form of the reference's
+``A_c^-1 (all_gather r_c)`` — the collective form of the reference's
 "gather small coarse grids onto fewer processors" strategy (C24).
 
 All stacked arrays use leading axis nd; ``local(tree)`` (= leaf[0] inside
@@ -24,6 +24,7 @@ import scipy.sparse as sp
 
 from ..params import AMGParams
 from ..ops import df64
+from ..ops.formats import HIGHEST
 from ..setup.hierarchy import Hierarchy
 from ..solve.device import (lambda_max_estimate, abs_row_sum,
                             dense_inverse, DeviceLevel)
@@ -109,7 +110,7 @@ class DistLevel:
 
     def coarse_solve(self, b_loc: jax.Array) -> jax.Array:
         """x_loc = (A_c^-1 b)_loc: all_gather b, multiply the local row
-        slice of the dense inverse on the MXU (reference C17 + C24
+        slice of the dense inverse (reference C17 + C24
         agglomeration).  Falls back to params.coarse_smooth_sweeps of
         l1-Jacobi when no dense inverse was built."""
         if self.coarse_inv is None:
@@ -117,7 +118,7 @@ class DistLevel:
             return l1_jacobi(self, b_loc, jnp.zeros_like(b_loc),
                              sweeps=self.coarse_sweeps, zero_start=True)
         b_full = jax.lax.all_gather(b_loc, self.axis, tiled=True)
-        return jnp.dot(self.coarse_inv, b_full,
+        return jnp.dot(self.coarse_inv, b_full, precision=HIGHEST,
                        preferred_element_type=b_loc.dtype)
 
 
@@ -154,9 +155,9 @@ def _replicated_level(lev, part: Partition, next_part: Partition | None,
     """Build a level in REPLICATED form: a serial DeviceLevel whose arrays
     carry a stacked leading nd axis (identical copies, one per shard).
     Inside shard_map its smoothers/transfers run with zero collectives —
-    the TPU-native form of the reference's 'gather small coarse grids onto
-    fewer processors' (C24).  Vector length == part.n_pad so the
-    GatherOut all_gather at the boundary lines up exactly."""
+    the reference's 'gather small coarse grids onto fewer processors'
+    (C24).  Vector length == part.n_pad so the GatherOut all_gather at
+    the boundary lines up exactly."""
     from ..ops.formats import csr_to_device, csr_to_ell
     import jax.tree as jtree
     A = lev.A
@@ -164,8 +165,7 @@ def _replicated_level(lev, part: Partition, next_part: Partition | None,
     L_pad = part.n_pad
     dev_A = csr_to_device(A, dtype=bdtype, prefer_dia=params.prefer_dia,
                           dia_max_bands=params.dia_max_bands,
-                          dense_size=params.dense_size, pad_multiple=L_pad,
-                          prefer_gell=True)
+                          dense_size=params.dense_size, pad_multiple=L_pad)
     d = A.diagonal()
     dinv = np.zeros(L_pad)
     dinv[:n] = np.where(d != 0, 1.0 / d, 0.0)
@@ -188,17 +188,8 @@ def _replicated_level(lev, part: Partition, next_part: Partition | None,
             R = csr_to_dense(lev.R.tocsr(), dtype=bdtype, out_pad=M_pad,
                              in_pad=L_pad)
         else:
-            # replicated transfers run shard-local: the GELL Pallas
-            # window-gather beats the XLA ELL gather here too
-            from ..ops.gell import csr_to_gell, gell_eligible
-            P = R = None
-            if gell_eligible():
-                P = csr_to_gell(lev.P.tocsr(), dtype=bdtype, n_pad=L_pad)
-                R = csr_to_gell(lev.R.tocsr(), dtype=bdtype, n_pad=M_pad)
-            if P is None:
-                P = csr_to_ell(lev.P, dtype=bdtype, pad_multiple=L_pad)
-            if R is None:
-                R = csr_to_ell(lev.R, dtype=bdtype, pad_multiple=M_pad)
+            P = csr_to_ell(lev.P, dtype=bdtype, pad_multiple=L_pad)
+            R = csr_to_ell(lev.R, dtype=bdtype, pad_multiple=M_pad)
     elif n <= params.coarse_inv_max and params.coarse_solver != "smooth":
         # tight 256-pad (not L_pad); DeviceLevel.coarse_solve slices/pads
         from ..ops.formats import _round_up
@@ -342,18 +333,14 @@ def fine_df64(hier: Hierarchy, dist: DistHierarchy, params: AMGParams,
     A_hi_host.data = A.data.astype(np.float32).astype(np.float64)
     lo_host = A.copy()
     lo_host.data = A.data - A_hi_host.data
-    # allow_gell=False: DistDf64's paired hi/lo SpMV needs the DistDia /
-    # DistEll layouts whose value arrays it can walk band-by-band
     A_hi = csr_to_dist(A_hi_host, part, part, dtype=jnp.float32, axis=axis,
                        prefer_dia=params.prefer_dia,
-                       dia_max_bands=params.dia_max_bands,
-                       allow_gell=False)
+                       dia_max_bands=params.dia_max_bands)
     if not lo_host.data.any():     # every entry fp32-exact -> drop lo
         return DistDf64(A_hi=A_hi, lo=None)
     lo_dev = csr_to_dist(lo_host, part, part, dtype=jnp.float32, axis=axis,
                          prefer_dia=params.prefer_dia,
-                         dia_max_bands=params.dia_max_bands,
-                         allow_gell=False)
+                         dia_max_bands=params.dia_max_bands)
     if isinstance(A_hi, DistDia):
         assert isinstance(lo_dev, DistDia) and lo_dev.offsets == A_hi.offsets
         return DistDf64(A_hi=A_hi, lo=lo_dev.bands)

@@ -1,19 +1,21 @@
 """Multi-host / multi-process execution (SURVEY.md §5.8, §4.4).
 
-The reference launches one MPI rank per GPU across nodes; the TPU-native
+The reference launches one MPI rank per GPU across nodes; the JAX
 equivalent is `jax.distributed.initialize()` + a mesh spanning every
-host's chips.  On a pod slice each host runs the same SPMD program; after
+process's devices.  Each process runs the same SPMD program; after
 `init_multihost()` `jax.devices()` returns the global device list and
-`DistAMGSolver` row-shards across the whole slice — halo `ppermute`s ride
-ICI within a host and DCN between hosts through the same collectives.
+`DistAMGSolver` row-shards across all of them through the same
+collectives.  On one multi-GPU host a single process drives every card
+(`DistAMGSolver(A, mesh=default_mesh(4))`) and needs none of this.
 
-Multi-process correctness is testable WITHOUT a pod (SURVEY.md §4.4:
-"multi-host logic testable via `jax.distributed` multi-process on one
-machine"): `launch_processes()` spawns N CPU processes, each with its own
-virtual devices federated through the coordination service (gloo
-collectives), and the worker below runs a full distributed solve whose
-iteration count and answer must match the single-process run —
-`tests/test_multihost.py` asserts exactly that.
+`launch_processes()` is a CPU test harness only: it spawns N CPU
+processes, each with its own virtual devices federated through the
+coordination service (gloo collectives), and the worker below runs a
+full distributed solve whose iteration count and answer must match the
+single-process run — `tests/test_multihost.py` asserts exactly that
+(SURVEY.md §4.4: "multi-host logic testable via `jax.distributed`
+multi-process on one machine").  One-rank-per-GPU runs through it are
+not supported yet.
 
 The two primitives every multi-process-clean data path needs:
 
@@ -31,6 +33,7 @@ import os
 import socket
 import subprocess
 import sys
+import tempfile
 
 import jax
 import numpy as np
@@ -43,11 +46,11 @@ def init_multihost(coordinator_address: str | None = None,
                    cpu_devices_per_process: int | None = None) -> None:
     """Initialize the JAX distributed runtime (no-op if single-process).
 
-    On TPU pods the arguments are auto-detected from the environment;
-    pass them explicitly for CPU/GPU clusters (the reference's mpirun
-    analog: one process per host).  ``cpu_devices_per_process`` forces the
-    CPU backend with that many virtual devices per process and gloo
-    cross-process collectives — the pod-less test configuration.
+    Pass the arguments explicitly (the reference's mpirun analog: one
+    process per host); nothing in a plain GPU host's environment describes
+    a cluster.  ``cpu_devices_per_process`` forces the CPU backend with
+    that many virtual devices per process and gloo cross-process
+    collectives — the test configuration.
     """
     if num_processes is not None and num_processes <= 1:
         return
@@ -128,8 +131,9 @@ def launch_processes(num_processes: int, n: int = 24,
     """Spawn ``num_processes`` federated CPU worker processes, each running
     the full distributed solve below; returns their result dicts.
 
-    This is the container's stand-in for `mpirun -np N` on a pod: same
-    program, same collectives, real process boundaries (gloo over TCP).
+    The CPU stand-in for `mpirun -np N`: same program, same collectives,
+    real process boundaries (gloo over TCP).  Workers always run on the
+    CPU backend.
 
     ``setup="blocked"`` (default) runs the PROCESS-LOCAL path: each
     worker assembles only its row block, coarsens through the blocked
@@ -153,7 +157,8 @@ def launch_processes(num_processes: int, n: int = 24,
         dpp = [int(devices_per_process)] * num_processes
     else:
         dpp = [int(d) for d in devices_per_process]
-    outs = [os.path.join("/tmp", f"sparsh_mp_{port}_{i}.json")
+    tmp = tempfile.TemporaryDirectory()
+    outs = [os.path.join(tmp.name, f"worker_{i}.json")
             for i in range(num_processes)]
     procs = []
     for i in range(num_processes):
@@ -170,37 +175,26 @@ def launch_processes(num_processes: int, n: int = 24,
                                       stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT))
     results = []
-    for i, p in enumerate(procs):
-        out, _ = p.communicate(timeout=timeout)
-        if p.returncode != 0:
-            for q in procs:
-                q.kill()
-            raise RuntimeError(
-                f"worker {i} failed (rc={p.returncode}):\n"
-                + out.decode(errors="replace")[-4000:])
-        with open(outs[i]) as f:
-            results.append(json.load(f))
-        os.remove(outs[i])
+    with tmp:
+        for i, p in enumerate(procs):
+            out, _ = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                for q in procs:
+                    q.kill()
+                raise RuntimeError(
+                    f"worker {i} failed (rc={p.returncode}):\n"
+                    + out.decode(errors="replace")[-4000:])
+            with open(outs[i]) as f:
+                results.append(json.load(f))
     return results
 
 
-def _flagship_params():
-    from ..params import AMGParams
-    return AMGParams(smoother="chebyshev", coarsening="pmis",
-                     interpolation="extpi", interp_max=4,
-                     rap_drop_tol=0.01, agg_levels=1,
-                     interp_max_composed=5, intermediate_drop_tol=0.02,
-                     aggressive="pmis2", band_dtype="bfloat16",
-                     dense_size=2048, cheby_degree_coarse=1,
-                     cheby_coarse_from=1)
-
-
 def _elasticity_sa_params(row_align: int = 6144):
-    """The RBM-SA elasticity recipe (CONFIGS elasticity3d row), with the
-    node/nullspace row alignment the blocked setup requires: row blocks
-    must not split a node's 3 dofs or an aggregate's 6 coarse dofs —
-    lcm(2048, 3, 6) = 6144 also keeps the device invariant (levels pad
-    to 2048 multiples for the Pallas tiles)."""
+    """The RBM-SA elasticity recipe (scripts/run_configs.py
+    elasticity3d row), with the node/nullspace row alignment the blocked
+    setup requires: row blocks must not split a node's 3 dofs or an
+    aggregate's 6 coarse dofs — lcm(2048, 3, 6) = 6144 also keeps the
+    device invariant (levels pad to 2048 multiples)."""
     from ..params import AMGParams
     return AMGParams(coarsening="aggregation", interpolation="smoothed",
                      smoother="chebyshev", coarse_size=200,
@@ -212,9 +206,10 @@ def _problem_spec(problem: str, m: int, row_align: int | None = None):
     """(n_glob, make_rows, make_nullspace, params) for a worker."""
     if problem == "poisson3d":
         from ..models.poisson import poisson3d_rows
+        from ..params import flagship_params
         return (m ** 3,
                 lambda r0, r1: poisson3d_rows(m, r0, r1),
-                None, _flagship_params())
+                None, flagship_params())
     if problem == "elasticity3d":
         from ..models.elasticity import (elasticity3d_rows,
                                          elasticity3d_nullspace_rows)
@@ -245,9 +240,8 @@ def _worker_main(argv=None) -> None:
     ap.add_argument("--out", required=True)
     args = ap.parse_args(argv)
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_sparsh_amg")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+    from ..utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     init_multihost(coordinator_address=args.coordinator,
                    num_processes=args.num_processes,
                    process_id=args.process_id,

@@ -4,7 +4,8 @@ The reference's multi-rank driver: partition rows, build per-level comm
 packages at setup, run the whole AMG-PCG solve with halo exchanges and
 allreduces.  Here the full solve — V/W/F cycle preconditioner, Krylov
 loop, df64 iterative refinement — runs as ONE jitted `shard_map` program
-over a 1-D device mesh: halo `ppermute`s ride ICI, dots are `psum`s, the
+over a 1-D device mesh: halo `ppermute`s and `psum` dots are collectives
+(NCCL on GPUs), the
 coarsest level agglomerates via `all_gather`.  The serial smoother /
 cycle / Krylov code is reused verbatim inside the shard_map body (the
 distributed operator types duck-type the device ones).
@@ -12,7 +13,6 @@ distributed operator types duck-type the device ones).
 from __future__ import annotations
 
 import dataclasses
-import os
 import time
 
 import jax
@@ -84,6 +84,10 @@ class DistAMGSolver:
         # degenerates to a plain device_put / device_get
         self.levels = put_sharded(self.dist.levels, self.mesh, self.axis)
         self.A_df = put_sharded(self.A_df, self.mesh, self.axis)
+        # keep only the sharded copies: the freeze built the full stacked
+        # arrays on the default device, where they would otherwise stay
+        # resident beside that device's own shard
+        self.dist = dataclasses.replace(self.dist, levels=self.levels)
         self._replicate = replicate_fn(self.mesh) \
             if jax.process_count() > 1 else None
         self._build_jitted()
@@ -147,13 +151,16 @@ class DistAMGSolver:
                                                   align=align),
             nullspace_own=ns_own)
         self.blocked = bh
+        # host-numpy stacks: each shard is uploaded straight to its device
         self.dist = blocked_to_dist(bh, self.nd, comm, self.params,
-                                    axis=self.axis)
+                                    axis=self.axis, as_numpy=True)
         self.part = self.dist.parts[0]
         A_df_host = fine_df64_blocked(bh.levels[0].A, r0, self.part, comm,
-                                      self.params, d0, dpp, axis=self.axis)
+                                      self.params, d0, dpp, axis=self.axis,
+                                      as_numpy=True)
         self.levels = put_local_stacked(self.dist.levels, self.mesh,
                                         self.axis, d0, dpp)
+        self.dist = dataclasses.replace(self.dist, levels=self.levels)
         self.A_df = put_local_stacked(A_df_host, self.mesh, self.axis,
                                       d0, dpp)
         self._replicate = replicate_fn(self.mesh) \
@@ -229,13 +236,9 @@ class DistAMGSolver:
             # check_vma=True (VERDICT r2 weak #6): the varying-mesh-axes
             # checker verifies every shard-varying value is psum'd before
             # being treated as replicated — exactly the class of bug a
-            # distributed AMG can have.  The pallas_call sites it used to
-            # reject now annotate their out_shape vma (ops/gell.py
-            # gell_gather_pallas); SPARSH_NO_VMA_CHECK=1 is the escape
-            # hatch if a future JAX changes the contract.
-            check = not os.environ.get("SPARSH_NO_VMA_CHECK")
+            # distributed AMG can have.
             return jax.shard_map(body, mesh=mesh, in_specs=in_specs,
-                                 out_specs=out_specs, check_vma=check)
+                                 out_specs=out_specs, check_vma=True)
 
         def inner_solve(levels_st, Adf_st, b_st, tol, maxiter):
             def body(levels_s, Adf_s, b_s, tol_s):

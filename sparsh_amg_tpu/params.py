@@ -89,7 +89,7 @@ class AMGParams:
                                        # iteration cost; 0 = off)
     max_levels: int = 25
     coarse_size: int = 1024            # stop coarsening at/below this n:
-                                       # the MXU dense inverse is cheap up
+                                       # the dense inverse is cheap up
                                        # to a few thousand rows, and every
                                        # level saved removes a full smoother
                                        # + transfer stage from the cycle
@@ -157,10 +157,10 @@ class AMGParams:
     coarse_solver: str = "lu"          # lu | cholesky | smooth: which host
                                        # factorization builds the explicit
                                        # coarse inverse (applied as ONE fp32
-                                       # MXU matvec on device — triangular
-                                       # solves are sequential and TPU-
-                                       # hostile); "cholesky" additionally
-                                       # verifies SPD; "smooth" skips the
+                                       # matvec on device — triangular
+                                       # solves are sequential); "cholesky"
+                                       # additionally verifies SPD;
+                                       # "smooth" skips the
                                        # inverse and runs l1-Jacobi sweeps
     coarse_inv_max: int = 8192         # build a dense inverse only if the
                                        # coarsest n is at/below this; else
@@ -185,7 +185,7 @@ class AMGParams:
                                        # (SURVEY.md §7 hard-part #2)
     dense_size: int = 2048             # densify levels at/below this n
                                        # (coarse AMG operators lose sparsity;
-                                       # MXU matvec wins and compiles O(1))
+                                       # a dense matvec compiles O(1))
     replicate_size: int = 4096         # distributed solves: levels at/below
                                        # this n are REPLICATED on every
                                        # shard — smoothing and transfers run
@@ -225,7 +225,7 @@ class KrylovParams:
     maxiter: int = 500
     # Iteration-loop placement (SURVEY.md §3.1): "device" runs the whole
     # Krylov loop as one lax.while_loop (single XLA computation, best for
-    # multi-host pods); "host" dispatches `chunk` iterations per jitted
+    # multi-host runs); "host" dispatches `chunk` iterations per jitted
     # call and checks convergence on the host — the reference's GPU-driver
     # pattern, robust to backends with per-while-iteration sync overhead.
     # "auto" probes the per-dispatch RTT at solver build and picks
@@ -233,19 +233,31 @@ class KrylovParams:
     loop_mode: str = "host"            # host | device | auto
     chunk: int = 4                     # iterations per dispatch (host mode;
                                        # up to chunk-1 overrun per solve)
-    # Mixed-precision iterative refinement: the device cycle runs in fp32
-    # (TPU has no fast native f64); to reach tol below fp32 roundoff the
-    # outer loop recomputes residuals in double-float (df64) arithmetic and
-    # accumulates x in df64.  SURVEY.md §7 "hard parts" #1.
+    # Mixed-precision iterative refinement: the device cycle runs in fp32;
+    # to reach tol below fp32 roundoff the outer loop recomputes residuals
+    # in double-float (df64) arithmetic and accumulates x in df64.  SURVEY.md §7 "hard parts" #1.
     refine: bool = True
     inner_tol: float = 1e-5            # per-refinement-pass inner tolerance
     max_refine: int = 6
     # Inner Krylov dot products: plain fp32 (XLA pairwise reduction,
     # ~log2(n)*eps relative error — far below inner_tol).  The df64
     # compensated dot is reserved for the OUTER refinement residuals: its
-    # 19-stage tree reduction costs ~47 ms per call inside a TPU
-    # while_loop body (measured), vs ~0 for the fused fp32 reduce.
+    # log2(n)-stage tree reduction is many kernels per call, vs one fused
+    # fp32 reduce.
     compensated_dots: bool = False
+
+
+def flagship_params(**overrides) -> AMGParams:
+    """The flagship 3-D Poisson recipe (bench.py's defaults): aggressive
+    PMIS + ext+i on the first step (pmis2), Chebyshev V-cycle, bf16
+    cycle bands, dense levels below 2048 rows."""
+    return AMGParams(smoother="chebyshev", cycle="V", coarsening="pmis",
+                     interpolation="extpi", interp_max=4,
+                     rap_drop_tol=0.01, agg_levels=1,
+                     interp_max_composed=5, intermediate_drop_tol=0.02,
+                     aggressive="pmis2", band_dtype="bfloat16",
+                     dense_size=2048, cheby_degree_coarse=1,
+                     cheby_coarse_from=1).replace(**overrides)
 
 
 DEFAULT_AMG = AMGParams()

@@ -6,8 +6,8 @@ Every rank owns a contiguous row block of each level and builds strength,
 PMIS, interpolation, R = P^T and the Galerkin RAP for its rows only,
 exchanging nothing but BOUNDARY data through a :class:`~..setup.comm.
 BlockComm` (ghost rows, halo C/F states, prefix counts) — no rank ever
-materializes the global matrix or hierarchy.  The exchanges, in pod
-order:
+materializes the global matrix or hierarchy.  The exchanges, in
+execution order:
 
   1. ST-degrees: additive routing of per-rank strength-column counts to
      their owners (PMIS weights w_i = deg_i + hash01(i) are then local).

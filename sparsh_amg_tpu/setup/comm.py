@@ -12,13 +12,13 @@ against this small interface; two implementations exist:
   setup is assertable in pytest.
 * :class:`GlooComm` — real process boundaries through the
   ``jax.distributed`` runtime (``multihost_utils.process_allgather`` over
-  the gloo CPU collectives / ICI on pods).  Used by the multi-process
+  the gloo CPU collectives).  Used by the multi-process
   workers (`parallel.multihost`).
 
 The blocked algorithms only ever exchange BOUNDARY data (ghost rows,
 halo C/F states, prefix counts), so allgather-based transport is cheap at
-the host counts this targets; on a pod the same interface can be backed
-by point-to-point DCN sends without touching the algorithms.
+the host counts this targets; across hosts the same interface can be
+backed by point-to-point network sends without touching the algorithms.
 """
 from __future__ import annotations
 

@@ -32,10 +32,6 @@ class Level:
     R: sp.csr_matrix | None = None   # restriction from this level to coarser
     cf: np.ndarray | None = None     # C/F split used here (None for agg)
     agg: np.ndarray | None = None    # aggregate map (aggregation coarsening)
-    bs: int = 1                      # dofs per node of THIS level's block
-                                     # structure (fine: params.agg_blocksize;
-                                     # SA coarse levels: the nullspace dim —
-                                     # drives the block-GELL device layout)
 
     @property
     def n(self) -> int:
@@ -199,9 +195,7 @@ def amg_setup(A: sp.csr_matrix, params: AMGParams | None = None,
     elif not A.has_canonical_format:
         A = A.copy()                # sum_duplicates mutates in place
     A.sum_duplicates()
-    levels = [Level(A=A, bs=(params.agg_blocksize
-                             if A.shape[0] % max(params.agg_blocksize, 1)
-                             == 0 else 1))]
+    levels = [Level(A=A)]
     B = None
     if nullspace is not None:
         B = np.ascontiguousarray(nullspace, dtype=np.float64)
@@ -310,9 +304,5 @@ def amg_setup(A: sp.csr_matrix, params: AMGParams | None = None,
             levels[-1].P = None
             levels[-1].R = None
             break
-        # SA-with-nullspace coarse dofs come in aggregate blocks of k —
-        # the block structure the block-GELL device layout exploits
-        bs_c = B_c.shape[1] if B_c is not None \
-            and Ac.shape[0] % B_c.shape[1] == 0 else 1
-        levels.append(Level(A=Ac, bs=bs_c))
+        levels.append(Level(A=Ac))
     return Hierarchy(levels=levels, params=params)

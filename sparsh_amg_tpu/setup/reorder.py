@@ -1,7 +1,7 @@
 """Bandwidth-reducing row ordering (SURVEY.md §7 hard-part #2).
 
-TPUs hate random gathers; the DIA layout and the distributed halo layout
-both require column indices near the diagonal.  Structured stencils come
+The DIA layout and the distributed halo layout both require column
+indices near the diagonal, and gathers are cheapest when they are local.  Structured stencils come
 pre-banded; general (e.g. SuiteSparse) matrices get a reverse Cuthill-McKee
 permutation at setup so they become banded too.  The permutation is applied
 once on the host; b/x are (un)permuted at the solve boundary.

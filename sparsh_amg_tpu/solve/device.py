@@ -5,12 +5,11 @@ frozen into padded device layouts and uploaded once).
 Each level carries: the operator in a DIA/ELL layout, inverse-diagonal and
 l1-inverse-diagonal vectors for the smoothers, a lambda_max estimate of
 D^-1 A for Chebyshev, the prolongator/restrictor in ELL, and — on the
-coarsest level — a dense inverse applied on the MXU.
+coarsest level — a dense inverse applied as one matvec.
 """
 from __future__ import annotations
 
 import dataclasses
-import os
 from functools import partial
 
 import jax
@@ -21,7 +20,7 @@ import scipy.sparse as sp
 from ..params import AMGParams
 from ..setup.hierarchy import Hierarchy
 from ..ops.formats import (csr_to_device, csr_to_ell, csr_to_dense,
-                           _round_up)
+                           _round_up, DiaMatrix, HIGHEST)
 
 
 @partial(jax.tree_util.register_dataclass,
@@ -47,7 +46,7 @@ class DeviceLevel:
         return self.dinv.shape[0]
 
     def coarse_solve(self, b: jax.Array) -> jax.Array:
-        """Dense inverse applied on the MXU (reference: LAPACK LU on the
+        """Dense inverse applied as one matvec (reference: LAPACK LU on the
         coarsest level, SURVEY.md C17).  When no inverse was built
         (coarse_solver='smooth', or stalled coarsening left the level too
         large), fall back to params.coarse_smooth_sweeps of l1-Jacobi.
@@ -60,7 +59,8 @@ class DeviceLevel:
             return l1_jacobi(self, b, jnp.zeros_like(b),
                              sweeps=self.coarse_sweeps, zero_start=True)
         r = self.coarse_inv.shape[-1]
-        y = jnp.dot(self.coarse_inv, b[:r], preferred_element_type=b.dtype)
+        y = jnp.dot(self.coarse_inv, b[:r], precision=HIGHEST,
+                    preferred_element_type=b.dtype)
         if b.shape[0] > r:
             y = jnp.pad(y, (0, b.shape[0] - r))
         return y
@@ -166,9 +166,9 @@ def _lambda_max_dinv_a(A: sp.csr_matrix, iters: int = 20,
 def dense_inverse(A: sp.csr_matrix, method: str = "lu") -> np.ndarray:
     """Explicit coarse inverse via the configured host factorization
     (params.coarse_solver; reference C17 uses LAPACK LU/Cholesky).  The
-    device apply stays a single fp32 MXU matvec either way — triangular
-    back-substitution is sequential and TPU-hostile, so the factorization
-    choice lives on the host where the inverse is formed."""
+    device apply stays a single fp32 matvec either way — triangular
+    back-substitution is sequential and parallelizes poorly, so the
+    factorization choice lives on the host where the inverse is formed."""
     import scipy.linalg as sla
     Ad = A.toarray()
     n = Ad.shape[0]
@@ -187,7 +187,8 @@ def to_device(hier: Hierarchy, params: AMGParams | None = None,
     (the df64 refinement operator's hi half).  When its layout matches
     what csr_to_device would build, the fine band_dtype operator is
     DERIVED ON DEVICE by casting those bands instead of uploading a
-    second copy of the largest matrix (2 B/nnz saved on the H2D link)."""
+    second copy of the largest matrix (2 B/nnz less host-to-device
+    traffic)."""
     params = params or hier.params
     dtype = dtype or jnp.dtype(params.dtype)
     bdtype = jnp.dtype(params.band_dtype)
@@ -196,10 +197,9 @@ def to_device(hier: Hierarchy, params: AMGParams | None = None,
         A = lev.A
         n = A.shape[0]
         is_coarsest = li == len(hier.levels) - 1 or lev.P is None
-        # pad to 8*128: the Pallas DIA kernel tiles sublane rows in
-        # multiples of 8 (16 for bf16), so every level's n_pad must divide
-        # into 16-row tiles (2048 = 16 sublanes x 128 lanes)
-        from ..ops.formats import DiaMatrix
+        # every level vector is padded to a multiple of 2048 rows;
+        # csr_to_df64 pads the fine level the same way, so the two fine
+        # operators share one vector length
         fine_reuse = (li == 0 and isinstance(fine_hi, DiaMatrix)
                       and fine_hi.n_rows == n and not is_coarsest
                       and n > params.dense_size
@@ -210,27 +210,11 @@ def to_device(hier: Hierarchy, params: AMGParams | None = None,
                     fine_hi, bands=jax.jit(
                         lambda b: b.astype(bdtype))(fine_hi.bands))
         else:
-            dev_A = None
-            lev_bs = getattr(lev, "bs", 1)
-            if (lev_bs > 1 and n > params.dense_size and n % lev_bs == 0
-                    and not os.environ.get("SPARSH_NO_BLOCK_GELL")):
-                # systems level (dofs-per-node block structure): the
-                # block-GELL layout packs the NODE pattern once and
-                # gathers bs de-interleaved source planes — bs x fewer
-                # gathers, bs^2 x fewer tiles than scalar GELL on the
-                # interleaved dof matrix (VERDICT r4 missing #4)
-                from ..ops.gell import gell_eligible
-                from ..ops.block_gell import csr_to_block_gell
-                if gell_eligible():
-                    dev_A = csr_to_block_gell(
-                        A, lev_bs, dtype=bdtype,
-                        n_pad=_round_up(max(n, 1), 2048))
-            if dev_A is None:
-                dev_A = csr_to_device(A, dtype=bdtype,
-                                      prefer_dia=params.prefer_dia,
-                                      dia_max_bands=params.dia_max_bands,
-                                      dense_size=params.dense_size,
-                                      pad_multiple=2048, prefer_gell=True)
+            dev_A = csr_to_device(A, dtype=bdtype,
+                                  prefer_dia=params.prefer_dia,
+                                  dia_max_bands=params.dia_max_bands,
+                                  dense_size=params.dense_size,
+                                  pad_multiple=2048)
         n_pad = dev_A.n_pad
         # l1_dinv is consumed only by the l1-Jacobi/gs2 smoothers and the
         # no-inverse coarse fallback — for the Chebyshev/Jacobi flagship
@@ -270,22 +254,8 @@ def to_device(hier: Hierarchy, params: AMGParams | None = None,
                 P = csr_to_dense(lev.P, dtype=bdtype, pad_multiple=2048)
                 R = csr_to_dense(lev.R, dtype=bdtype, pad_multiple=2048)
             else:
-                # transfers are the gather-heaviest ops of the cycle
-                # (fine-row-count work): gathered-ELL when it packs
-                from ..ops.gell import csr_to_gell_auto, gell_eligible
-                P = R = None
-                if gell_eligible():
-                    # _auto row-splits degree-skewed operators (hits the
-                    # aggressive-coarsening restriction: ~2x fewer slots)
-                    P = csr_to_gell_auto(lev.P.tocsr(), dtype=bdtype)
-                    R = csr_to_gell_auto(lev.R.tocsr(), dtype=bdtype)
-                if P is None:
-                    P = csr_to_ell(lev.P, dtype=bdtype, pad_multiple=2048)
-                if R is None:
-                    R = csr_to_ell(lev.R, dtype=bdtype, pad_multiple=2048)
-                # row padding is a multiple of 2048 in both layouts, so
-                # shapes line up with the level vectors.
-                assert P.n_pad >= n and R.n_pad >= nc
+                P = csr_to_ell(lev.P, dtype=bdtype, pad_multiple=2048)
+                R = csr_to_ell(lev.R, dtype=bdtype, pad_multiple=2048)
         elif n <= params.coarse_inv_max and params.coarse_solver != "smooth":
             r = min(_round_up(max(n, 1), 256), n_pad)
             dense = np.zeros((r, r), dtype=np.float32)

@@ -4,7 +4,7 @@ PCG and BiCGStab, each in two execution modes:
 
 * device mode — the whole iteration as one `lax.while_loop`: a single XLA
   computation, convergence control as a traced predicate.  Ideal when the
-  host-device link is thin (multi-host pods).
+  host-device link is thin or several hosts run one program.
 * host/chunked mode — k iterations per jitted dispatch (`lax.fori_loop`
   inside, no data-dependent control flow), with the convergence check on
   the host once per chunk.  This mirrors the reference's GPU driver (host
@@ -91,10 +91,9 @@ def pcg_chunk(matvec, precond, chunk: int, compensated: bool = False,
         return pcg_init(matvec, precond, b, _dot, x0)
 
     def chunk_fn(state):
-        # trace-time unroll (python loop, straight-line XLA): backends that
-        # execute loop bodies op-by-op (remote/tunnel dispatch) run
-        # straight-line programs orders of magnitude faster, and on real
-        # hardware XLA schedules the unrolled chunk at least as well
+        # trace-time unroll (python loop, straight-line XLA): no device
+        # loop predicate is read back inside a chunk, and XLA schedules
+        # the unrolled chunk at least as well as a loop body
         for _ in range(chunk):
             state = pcg_step(matvec, precond, _dot, state)
         return state

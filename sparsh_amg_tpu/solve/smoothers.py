@@ -1,35 +1,28 @@
 """Smoothers (SURVEY.md §2 C14-C16).
 
 The reference ships weighted Jacobi, hybrid Gauss-Seidel, and Chebyshev.
-True Gauss-Seidel is sequential and has no efficient TPU form; the standard
-TPU-native replacements (SURVEY.md §7 hard-part #6, PAPERS.md two-stage GS)
-are l1-Jacobi (convergent without damping for any SPD M-matrix row scaling)
-and Chebyshev (pure SpMV recurrence — ideal for the TPU's static dataflow).
+True Gauss-Seidel is sequential and has no efficient data-parallel form;
+the standard data-parallel replacements (SURVEY.md §7 hard-part #6,
+PAPERS.md two-stage GS) are l1-Jacobi (convergent without damping for any
+SPD M-matrix row scaling) and Chebyshev (a pure SpMV recurrence).
 All smoothers preserve zero padding because dinv/l1_dinv are zero there.
 """
 from __future__ import annotations
 
 import jax.numpy as jnp
 
-from ..ops.formats import spmv, DiaMatrix, _use_pallas_dia
+from ..ops.formats import spmv
 
 
 def _jacobi_like(A, b, x, sweeps, dinv, omega, zero_start):
-    """Shared weighted-Jacobi sweep loop; fuses each sweep into one Pallas
-    op on the DIA path."""
+    """Shared weighted-Jacobi sweep loop."""
     if sweeps <= 0:
         return x
     if zero_start:
         x = omega * dinv * b if omega != 1.0 else dinv * b
         sweeps -= 1
-    fused = isinstance(A, DiaMatrix) and _use_pallas_dia(A.n_pad, A.offsets)
     for _ in range(sweeps):
-        if fused:
-            from ..ops.pallas_spmv import dia_jacobi_sweep
-            x = dia_jacobi_sweep(A.bands, x, b, dinv, omega, A.offsets,
-                                 A.n_pad)
-        else:
-            x = x + omega * dinv * (b - spmv(A, x))
+        x = x + omega * dinv * (b - spmv(A, x))
     return x
 
 
@@ -50,7 +43,7 @@ def chebyshev(level, b, x, degree: int, lower_frac: float,
               zero_start: bool = False):
     """Chebyshev polynomial smoother of the given degree on D^-1 A, with
     eigenvalue window [lower_frac * lam_max, lam_max] (hypre/PyAMG
-    convention).  degree SpMVs, no dot products — TPU-ideal."""
+    convention).  degree SpMVs, no dot products."""
     if degree <= 0:
         return x
     lmax = level.lam_max
@@ -60,33 +53,23 @@ def chebyshev(level, b, x, degree: int, lower_frac: float,
     sigma = theta / delta
     rho = 1.0 / sigma
     A = level.A
-    fused = isinstance(A, DiaMatrix) and _use_pallas_dia(A.n_pad, A.offsets)
     if zero_start:
         r = level.dinv * b
-    elif fused:
-        from ..ops.pallas_spmv import dia_dinv_residual
-        r = dia_dinv_residual(A.bands, x, b, level.dinv, A.offsets, A.n_pad)
     else:
         r = level.dinv * (b - spmv(A, x))
     d = r / theta
     for _ in range(degree - 1):
         rho_new = 1.0 / (2.0 * sigma - rho)
-        if fused:
-            from ..ops.pallas_spmv import dia_cheb_step
-            x, r, d = dia_cheb_step(A.bands, x, d, r, level.dinv,
-                                    rho_new * rho, 2.0 * rho_new / delta,
-                                    A.offsets, A.n_pad)
-        else:
-            x = x + d
-            r = r - level.dinv * spmv(A, d)
-            d = (rho_new * rho) * d + (2.0 * rho_new / delta) * r
+        x = x + d
+        r = r - level.dinv * spmv(A, d)
+        d = (rho_new * rho) * d + (2.0 * rho_new / delta) * r
         rho = rho_new
     return x + d
 
 
 def two_stage_gs(level, b, x, sweeps: int, stages: int = 2,
                  backward: bool = False, zero_start: bool = False):
-    """Two-stage Gauss-Seidel (the TPU-native form of the reference's
+    """Two-stage Gauss-Seidel (the data-parallel form of the reference's
     hybrid GS, PAPERS.md arXiv:2104.01196): each sweep solves the
     triangular system (D + L) z = r inexactly with `stages` Jacobi
     iterations on the triangle:  z_0 = D^-1 r,  z_{k+1} = D^-1 (r - L z_k).

@@ -66,20 +66,12 @@ def op_bytes(op) -> int:
     + source read + destination write; gathered layouts count the gathered
     x elements, DIA counts one linear x pass)."""
     from ..ops.formats import DiaMatrix, EllMatrix, DenseMatrix
-    from ..ops.gell import GellMatrix, SplitGell
     if isinstance(op, DiaMatrix):
         return (op.bands.size * op.bands.dtype.itemsize
                 + 2 * op.n_pad * 4)
     if isinstance(op, EllMatrix):
         return (op.vals.size * (op.vals.dtype.itemsize + 4)
                 + (op.k + 1) * op.n_pad * 4)
-    if isinstance(op, GellMatrix):
-        # packed idx + vals streamed; one gathered x element per slot
-        return (op.packed.size * (op.packed.dtype.itemsize
-                                  + op.vals.dtype.itemsize + 4)
-                + op.n_pad * 4)
-    if isinstance(op, SplitGell):
-        return op_bytes(op.part) + op_bytes(op.comb)
     if isinstance(op, DenseMatrix):
         return (op.mat.size * op.mat.dtype.itemsize
                 + (op.mat.shape[0] + op.mat.shape[1]) * 4)
@@ -103,8 +95,7 @@ def footprint_table(dev, A_df=None) -> list:
     'price every uploaded array').  Returns one dict per level with bytes
     of the operator, transfers, smoother vectors and coarse inverse, plus
     a final row for the df64 fine operator when given.  Every array is
-    priced at its device dtype, so uint16 GELL tables and bf16 bands show
-    their real cost."""
+    priced at its device dtype, so bf16 bands show their real cost."""
     from .meminfo import tree_device_bytes
 
     rows = []

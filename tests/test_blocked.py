@@ -98,7 +98,8 @@ def test_blocked_aggressive_step_bit_identical():
     """The blocked AGGRESSIVE step (distributed dist-2 C-C graph, second
     PMIS round, per-pass multipass exchanges, fused Jacobi repair) is
     bit-identical to the global `_coarsen_aggressive` — the flagship
-    coarsening a pod would actually run (VERDICT r3 missing #2)."""
+    coarsening a multi-host run would actually use (VERDICT r3 missing
+    #2)."""
     from sparsh_amg_tpu.setup.hierarchy import _coarsen_aggressive
     A = poisson3d(20).tocsr()
     P_g, cf_g = _coarsen_aggressive(A, FLAGSHIP)

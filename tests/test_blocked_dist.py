@@ -3,11 +3,11 @@ next #1/#6).
 
 `blocked_to_dist` must reproduce the global `to_dist` SHARD-FOR-SHARD:
 identical pytree structure (all comm-agreed static metadata — DIA
-offsets, ELL K/h/mode, GELL plans, lambda_max) and bit-identical data
+offsets, ELL K/h/mode, lambda_max) and bit-identical data
 in each rank's dpp-slice of every stacked leaf.  Asserted here through
 `slice_to_blocked` (same hierarchy on both sides, so every difference
 is a freeze bug, not setup rounding), for the flagship config, gs2
-triangles, and the force-GELL packing plan.
+triangles, and distributed ELL levels.
 """
 import numpy as np
 import pytest
@@ -15,7 +15,7 @@ import pytest
 import jax
 
 from sparsh_amg_tpu.models.poisson import poisson3d
-from sparsh_amg_tpu.params import AMGParams, KrylovParams
+from sparsh_amg_tpu.params import AMGParams, KrylovParams, flagship_params
 from sparsh_amg_tpu.setup.hierarchy import amg_setup
 from sparsh_amg_tpu.setup.comm import run_blocked
 from sparsh_amg_tpu.parallel.hierarchy import to_dist
@@ -25,12 +25,7 @@ from sparsh_amg_tpu.parallel.blocked_dist import (
 from sparsh_amg_tpu.parallel.hierarchy import fine_df64
 from sparsh_amg_tpu.parallel.partition import Partition
 
-FLAGSHIP = AMGParams(coarsening="pmis", interpolation="extpi",
-                     smoother="chebyshev", band_dtype="bfloat16",
-                     interp_max=4, rap_drop_tol=0.01, agg_levels=1,
-                     interp_max_composed=5, intermediate_drop_tol=0.02,
-                     aggressive="pmis2", dense_size=2048,
-                     cheby_degree_coarse=1, cheby_coarse_from=1)
+FLAGSHIP = flagship_params()
 
 ND, NPROCS = 8, 4
 
@@ -88,20 +83,17 @@ def test_blocked_freeze_matches_global(params):
         _assert_shard_equal(Adf_g, Adf_b, rank, dpp, f"rank{rank} df64")
 
 
-def test_blocked_freeze_gell_plan(monkeypatch):
-    """With GELL forced (the TPU-default layout), the comm-agreed
-    packing plan reproduces `csr_to_gell_stacked`'s tables bitwise."""
-    monkeypatch.setenv("SPARSH_FORCE_GELL", "1")
+def test_blocked_freeze_ell_levels():
+    """With the dense/replication thresholds pushed down, distributed
+    irregular levels freeze as DistEll and the comm-agreed process-local
+    freeze reproduces the global one bitwise."""
     import dataclasses
-    # push the dense/replication thresholds down so irregular
-    # distributed levels (the GELL clients) exist at test scale
     params = dataclasses.replace(FLAGSHIP, dense_size=256,
                                  replicate_size=512)
     A = poisson3d(32)
     hier = amg_setup(A, params)
     dist_g = to_dist(hier, ND, params)
     outs, dpp = _freeze_all_ranks(hier, params)
-    from sparsh_amg_tpu.parallel.dist import DistGell
 
     def ops_of(lev):
         out = [("A", lev.A)]
@@ -110,13 +102,13 @@ def test_blocked_freeze_gell_plan(monkeypatch):
                 out.append((nm, getattr(op, "op", op)))
         return out
 
-    kinds = [type(op).__name__ for l in dist_g.levels
+    kinds = [type(op).__name__ for l in dist_g.levels[1:]
              for _, op in ops_of(l)]
-    assert "DistGell" in kinds, kinds
+    assert "DistEll" in kinds, kinds
     for rank, (dist_b, _) in enumerate(outs):
         for li in range(dist_g.n_levels):
             _assert_shard_equal(dist_g.levels[li], dist_b.levels[li],
-                                rank, dpp, f"gell rank{rank} level{li}")
+                                rank, dpp, f"ell rank{rank} level{li}")
 
 
 def test_csr_rows_to_dist_gather_mode():
@@ -132,7 +124,7 @@ def test_csr_rows_to_dist_gather_mode():
     A = A.tocsr()
     A.sum_duplicates()
     part = Partition.make(n, ND)
-    op_g = csr_to_dist(A, part, part, prefer_dia=True, allow_gell=False)
+    op_g = csr_to_dist(A, part, part, prefer_dia=True)
     assert isinstance(op_g, DistEll) and op_g.mode == "gather"
     dpp = ND // NPROCS
 
@@ -141,7 +133,7 @@ def test_csr_rows_to_dist_gather_mode():
         r0 = min(d0 * part.n_loc, n)
         r1 = min((d0 + dpp) * part.n_loc, n)
         return csr_rows_to_dist(A[r0:r1].tocsr(), r0, part, part, comm,
-                                d0, dpp, allow_gell=False, as_numpy=True)
+                                d0, dpp, as_numpy=True)
 
     for rank, op_b in enumerate(run_blocked(fn, NPROCS)):
         assert op_b.mode == "gather" and op_b.h == op_g.h
@@ -195,9 +187,8 @@ def test_blocked_freeze_solves():
 def test_rehearsal_path_freeze_matches_global():
     """The DRESS-REHEARSAL pipeline (per-rank generator -> blocked setup
     -> per-rank freeze) produces shards bitwise equal to the global
-    `to_dist` freeze of the stitched hierarchy — the equivalence the
-    464^3 rehearsal asserts at 160^3 (scripts/rehearsal_dist.py), pinned
-    here at test scale through the same code path."""
+    `to_dist` freeze of the stitched hierarchy, pinned at test scale
+    through the same code path a large multi-rank run takes."""
     from sparsh_amg_tpu.models.poisson import poisson3d_rows
     from sparsh_amg_tpu.setup.blocked import (blocked_amg_setup,
                                               partition_bounds,

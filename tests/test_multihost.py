@@ -2,7 +2,7 @@
 testable via `jax.distributed` multi-process on one machine").
 
 The reference validates its MPI path by running `mpirun -np N` at small
-rank counts; the TPU-native equivalent spawns N federated CPU processes
+rank counts; the JAX equivalent spawns N federated CPU processes
 (jax.distributed + gloo collectives, real process boundaries) and requires
 the distributed solve to match the single-process run over a mesh of the
 same total device count: identical iteration count and the same answer.
@@ -20,9 +20,8 @@ import pytest
 import jax
 
 from sparsh_amg_tpu.models.poisson import poisson3d
-from sparsh_amg_tpu.params import AMGParams, KrylovParams
-from sparsh_amg_tpu.parallel.multihost import (launch_processes,
-                                               _flagship_params)
+from sparsh_amg_tpu.params import AMGParams, KrylovParams, flagship_params
+from sparsh_amg_tpu.parallel.multihost import launch_processes
 from sparsh_amg_tpu.parallel.solver import DistAMGSolver, default_mesh
 
 N = 24   # 24^3 = 13,824 unknowns (fast; the 96^3 artifact run is
@@ -33,7 +32,7 @@ N = 24   # 24^3 = 13,824 unknowns (fast; the 96^3 artifact run is
 def single_process_reference():
     A = poisson3d(N)
     solver = DistAMGSolver(A, mesh=default_mesh(4),
-                           params=_flagship_params(),
+                           params=flagship_params(),
                            krylov=KrylovParams(tol=1e-8, maxiter=60))
     rng = np.random.default_rng(0)
     b = rng.standard_normal(A.shape[0])
@@ -98,7 +97,7 @@ def test_uneven_topology_bicgstab_global_setup():
     A = poisson3d(N)
     kr = KrylovParams(method="bicgstab", tol=1e-8, maxiter=60)
     solver = DistAMGSolver(A, mesh=default_mesh(4),
-                           params=_flagship_params(), krylov=kr)
+                           params=flagship_params(), krylov=kr)
     rng = np.random.default_rng(0)
     b = rng.standard_normal(A.shape[0])
     ref = solver.solve(b)
